@@ -1,13 +1,14 @@
-"""Benchmark: batched warm-started MPC solves/s per chip.
+"""Benchmark: batched warm-started MPC solves/s on one GPU.
 
-North-star metric (BASELINE.md): full MPC solves/s — target >= 1e4 on a
-v5e-16 pod slice, i.e. >= 625 solves/s/chip. One "solve" = a complete
-warm-started ALM+PANOC trajectory optimization for the Pacejka vehicle OCP
-(N_horiz=12, 24 decision vars, 100-point centerline — the reference's
-configuration, main.py:65-70) to eps=1e-4 stationarity, inside a closed loop
-with per-scenario plant propagation (plant == prediction model, main.py:145).
+One "solve" = a complete warm-started ALM+PANOC trajectory optimization for
+the Pacejka vehicle OCP (N_horiz=12, 24 decision vars, 100-point centerline
+— the reference's configuration, main.py:65-70) to eps=1e-4 stationarity,
+inside a closed loop with per-scenario plant propagation (plant ==
+prediction model, main.py:145).
 
-Prints one JSON line: {"metric", "value", "unit", "vs_baseline"}.
+Run from the repository root:  python bench.py
+Prints a detail line, then one JSON result line {"metric", "value", "unit"}
+as the LAST line.
 """
 
 import json
@@ -24,19 +25,25 @@ from mpc_tpu.models.integrators import discretize
 from mpc_tpu.models.params import VehicleParams
 from mpc_tpu.ops.road import straight_centerline
 
-BASELINE_SOLVES_PER_S_PER_CHIP = 625.0  # 1e4 / 16 chips (BASELINE.json)
+HEADLINE_BATCH = 1024
+HEADLINE_N_HORIZ = 12
 
 
-def main():
-    batch = 1024
-    n_horiz = 12
-    n_steps = 20          # timed closed-loop steps
-    n_warmup = 5
+def build_headline(batch: int = HEADLINE_BATCH,
+                   n_horiz: int = HEADLINE_N_HORIZ, unroll=None):
+    """The headline closed loop: ``(mpc_step, y0s, carries0, single_step)``.
 
+    ``mpc_step(ys, carries) -> (ys_next, carries_next, converged)`` is one
+    jitted, vmapped warm-started controller step plus plant propagation over
+    ``batch`` lanes; ``single_step`` is its batch-1 counterpart. Initial
+    states are drawn from seed 0. ``unroll=None`` takes the library's
+    horizon-unroll policy.
+    """
     ctrl = build_vehicle_controller(
         n_horiz=n_horiz,
         alm_cfg=AlmConfig(eps=1e-4),
         panoc_cfg=PanocConfig(lbfgs_memory=n_horiz, max_iter=300),
+        unroll=unroll,
     )
     params = VehicleParams()
     f_d = discretize(pacejka_dynamics)
@@ -48,19 +55,28 @@ def main():
     y0s[:, 1] = rng.uniform(-0.1, 0.1, batch)
     y0s[:, 2] = rng.uniform(-0.2, 0.2, batch)
     y0s[:, 3] = rng.uniform(0.3, 1.0, batch)
-    y0s = jnp.asarray(y0s)
 
-    @jax.jit
-    def mpc_step(ys, carries):
-        def one(y, carry):
-            out = ctrl.step(carry, {"y0": y, "p": params, "centerline": cl})
-            y_next = f_d(y, out.u0, params)
-            return y_next, out.carry, out.result.converged
-        return jax.vmap(one)(ys, carries)
+    def one(y, carry):
+        out = ctrl.step(carry, {"y0": y, "p": params, "centerline": cl})
+        y_next = f_d(y, out.u0, params)
+        return y_next, out.carry, out.result.converged
 
+    mpc_step = jax.jit(jax.vmap(one))
     carries = jax.vmap(lambda _: ctrl.init_carry())(jnp.arange(batch))
+    return mpc_step, jnp.asarray(y0s), carries, jax.jit(one)
 
-    ys = y0s
+
+def main():
+    from mpc_tpu.utils.compile_cache import enable_compile_cache
+    from mpc_tpu.utils.perfdb import device_stamp
+
+    enable_compile_cache()
+    batch = HEADLINE_BATCH
+    n_steps = 20          # timed closed-loop steps
+    n_warmup = 5
+
+    mpc_step, y0s, carries0, mpc_step1 = build_headline(batch)
+    ys, carries = y0s, carries0
     for _ in range(n_warmup):  # compile + reach warm-started steady state
         ys, carries, conv = mpc_step(ys, carries)
     jax.block_until_ready(ys)
@@ -83,13 +99,8 @@ def main():
     # one warm-started solve must fit that budget. Measured as a separate
     # batch-1 closed loop (NOT headline/batch divided by batch — dispatch
     # and worst-lane effects don't amortize at batch 1).
-    @jax.jit
-    def mpc_step1(y, carry):
-        out = ctrl.step(carry, {"y0": y, "p": params, "centerline": cl})
-        return f_d(y, out.u0, params), out.carry, out.result.converged
-
     y1 = y0s[0]
-    c1 = ctrl.init_carry()
+    c1 = jax.tree_util.tree_map(lambda x: x[0], carries0)
     for _ in range(n_warmup):
         y1, c1, _ = mpc_step1(y1, c1)
     jax.block_until_ready(y1)
@@ -101,29 +112,25 @@ def main():
         lat.append(time.perf_counter() - t0)
     lat = np.asarray(lat)
     lat_p50 = float(np.percentile(lat, 50))
-    lat_p99 = float(np.percentile(lat, 99))
 
-    result = {
-        "metric": "mpc_solves_per_s_per_chip",
-        "value": round(solves_per_s, 1),
-        "unit": "solves/s/chip",
-        "vs_baseline": round(solves_per_s / BASELINE_SOLVES_PER_S_PER_CHIP, 3),
-    }
-    # context lines on stderr-like side channel (driver parses the last line)
     print(json.dumps({
         "detail": {
-            "batch": batch, "n_horiz": n_horiz,
-            "p50_step_latency_s": round(p50, 5),
-            "p99_step_latency_s": round(float(np.percentile(times, 99)), 5),
-            "mean_converged_fraction": round(float(np.mean(conv_frac)), 4),
-            "single_solve_p50_s": round(lat_p50, 5),
-            "single_solve_p99_s": round(lat_p99, 5),
+            "batch": batch, "n_horiz": HEADLINE_N_HORIZ,
+            "p50_step_latency_s": p50,
+            "p99_step_latency_s": float(np.percentile(times, 99)),
+            "mean_converged_fraction": float(np.mean(conv_frac)),
+            "single_solve_p50_s": lat_p50,
+            "single_solve_p99_s": float(np.percentile(lat, 99)),
             "realtime_budget_s": 0.05,   # Ts, car_dynamics.py:93
             "realtime_ok": bool(lat_p50 <= 0.05),
-            "device": str(jax.devices()[0]),
+            "device": device_stamp(),
         }
     }))
-    print(json.dumps(result))
+    print(json.dumps({
+        "metric": "mpc_solves_per_s_per_chip",
+        "value": solves_per_s,
+        "unit": "solves/s/chip",
+    }))
 
 
 if __name__ == "__main__":

@@ -1,9 +1,8 @@
 """Full benchmark suite: the five BASELINE.json configs on one chip.
 
-Each config can run in its own process (TPU compiles are remote and slow;
-one config per process keeps the helper from OOMing and lets runs be
-serialized). Results accumulate in ``.perf_results.json`` at the repo root
-and PERF.md is regenerated from the accumulated set after every run.
+Configs run one after another in one process, which holds the card for
+the whole run (``--configs`` picks a subset). Each result is printed as one
+JSON line and recorded through ``mpc_tpu.utils.perfdb``.
 
 Run:  python examples/bench_suite.py [--quick] [--configs 1 2 3 4 5]
 """
@@ -32,8 +31,6 @@ from mpc_tpu.ops.road import straight_centerline
 from mpc_tpu.utils.timing import percentile_summary
 
 PARAMS = VehicleParams()
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RESULTS_PATH = os.path.join(REPO, ".perf_results.json")
 
 
 def bench_mpc_config(name, ctrl, f_d, cl, y0_fn, batch, n_warm=4, n_steps=10):
@@ -61,9 +58,9 @@ def bench_mpc_config(name, ctrl, f_d, cl, y0_fn, batch, n_warm=4, n_steps=10):
         state, conv = step(state)
         jax.block_until_ready(state)
         ts.append(time.perf_counter() - t0)
-        # per-step mean, averaged over ALL timed steps (bench.py:69-75
+        # per-step mean, averaged over ALL timed steps (bench.py
         # semantics) — a final-step sample misrepresents configs whose
-        # per-step convergence varies (VERDICT r4 weak #4)
+        # per-step convergence varies
         conv_frac.append(float(jnp.mean(conv.astype(jnp.float32))))
 
     lat = percentile_summary(ts)
@@ -128,7 +125,7 @@ def run_config_1(args):
                             straight_centerline(100), y0_1, B)
 
 
-def _config2_setup():
+def config2_setup():
     pts = lane_change_control_points(5.0).control_points * 0.01
     cl2 = bezier_centerline(pts, size=100)
     d0 = cl2[1] - cl2[0]
@@ -142,19 +139,42 @@ def _config2_setup():
     return cl2, y0_2
 
 
+def config2_step(n_horiz: int = 40, unroll=None):
+    """Config 2's jitted batch closed-loop step and its controller.
+
+    ``step(ys, carries, cl) -> (ys, carries, converged, u0)`` vmaps one
+    warm-started AL-iLQR controller step plus plant propagation over the
+    lanes; ``unroll=None`` takes the library's horizon-unroll policy.
+    """
+    from mpc_tpu.control.mpc import build_vehicle_ilqr_controller
+    from mpc_tpu.solver.ilqr import IlqrConfig
+    ctrl = build_vehicle_ilqr_controller(
+        n_horiz=n_horiz, bound_state_constraints=True,
+        alm_cfg=AlmConfig(delta=1e-3, max_iter=8, sigma_0=1e3,
+                          penalty_factor=5.0),
+        ilqr_cfg=IlqrConfig(max_iter=30, unroll=unroll))
+    f_d = discretize(pacejka_dynamics)
+    params = VehicleParams()
+
+    def one(y, carry, cl):
+        out = ctrl.step(carry, {"y0": y, "p": params, "centerline": cl})
+        return (f_d(y, out.u0, params), out.carry, out.result.converged,
+                out.u0)
+
+    return jax.jit(jax.vmap(one, in_axes=(0, 0, None))), ctrl
+
+
 def run_config_2(args):
     """Pacejka on Bezier road, N=40, bounded state constraints.
 
-    Solved with AL-iLQR — the fastest of the three decompositions at this
-    horizon (recorded 3-way ss/ms/ilqr comparison: PERF.md section 7,
-    written by ``examples/exp_ms.py --record``), with the sequential
-    Riccati backward pass (IlqrConfig default; the parallel scan is ~2.5x
-    slower end-to-end at this batch — PERF.md section 9-backward).
+    Solved with AL-iLQR (the single/multiple-shooting/iLQR comparison is
+    ``examples/exp_ms.py``) with the sequential Riccati backward pass
+    (IlqrConfig default). Neither choice has been timed on the GPU yet.
     """
     from mpc_tpu.control.mpc import build_vehicle_ilqr_controller
     from mpc_tpu.solver.ilqr import IlqrConfig
     B = 128 if args.quick else 256
-    cl2, y0_2 = _config2_setup()
+    cl2, y0_2 = config2_setup()
     ctrl2 = build_vehicle_ilqr_controller(
         n_horiz=40, bound_state_constraints=True,
         alm_cfg=AlmConfig(delta=1e-3, max_iter=8, sigma_0=1e3,
@@ -222,9 +242,8 @@ def run_config_4(args):
 
     Fixture: the overtake geometry of tests/test_two_car.py:52-63 batched
     up — both cars start in lane 1 with B slow and close ahead of A, so the
-    IBR layer must decide a lane change *during* the loop (the r4 fixture
-    parked B in lane 2 and recorded mean_lane_changes_a = 0.0: a frozen
-    fixed point, VERDICT r4 weak #7)."""
+    IBR layer must decide a lane change *during* the loop (a fixture that
+    parks B in lane 2 sits at a frozen fixed point with no lane change)."""
     from mpc_tpu.models.params import VehicleParams  # noqa: F401
     from mpc_tpu.sim.two_car import make_two_car_game
 
@@ -305,23 +324,14 @@ def _payoff_kernel_bench():
 
 
 def run_config_5(args):
-    """Randomized scenario suite, two-tier solving (VERDICT r2 task 4).
+    """Randomized scenario suite, two-tier solving.
 
     The single-tier batched scan pays worst-lane iteration cost on every
-    step (round-1: 118 solves/s, a 33x cliff vs the headline). Two tiers:
-    a cheap bounded-budget pass over the full batch, then a compacted
-    straggler re-solve at full budget (sim/scenarios.py). The cheap budget
-    must cover the persistent hard lanes (~5% arc roads need ~60-150 PANOC
-    iters/step, PERF section 10): at cheap_iters=120 stragglers are ~0.2%.
-    The r4 regression to 308-326 solves/s at batch 2048 was NOT solver
-    cost: every ~11-s straggler step was the first occurrence of a
-    straggler *count*, i.e. a remote compile of the bad.size-shaped
-    scatter ops — fixed by scattering the full repeat-padded index vector
-    (static shapes) plus a pad-shape-grid precompile warmup
-    (sim/scenarios.py). With flat ~0.2-0.3 s straggler re-solves, a lean
-    cheap tier (40 iters) + ~5% stragglers beats 120 iters for every
-    lane. Recorded: 2166 solves/s at batch 2048, straggler tier
-    ~0.2 s/step (PERF section 5).
+    step. Two tiers: a cheap bounded-budget pass over the full batch, then
+    a compacted straggler re-solve at full budget (sim/scenarios.py). The
+    straggler batch is scattered back over a full repeat-padded index
+    vector (static shapes) and every pad shape is compiled during warm-up,
+    so no straggler count triggers a compile mid-rollout.
     """
     from mpc_tpu.io.native_scenarios import generate_scenarios
     from mpc_tpu.sim.scenarios import run_scenario_suite_two_tier
@@ -376,24 +386,19 @@ def main():
     ap.add_argument("--configs", nargs="*", default=list(CONFIGS),
                     choices=list(CONFIGS))
     ap.add_argument("--cheap-iters", type=int, default=40,
-                    help="config 5 cheap-tier PANOC iteration cap. 40 is "
-                         "the throughput optimum now that straggler "
-                         "re-solves cost a flat ~0.2-0.3 s at any padded "
-                         "count (static-shape scatter + shape-grid "
-                         "precompile): a lean cheap tier + ~5%% stragglers "
-                         "beats paying 120 iters for every lane (PERF "
-                         "sections 5, 10, 10-c120). The r4 'raise to 120' "
-                         "verdict was an artifact of per-count scatter "
-                         "recompiles.")
-    ap.add_argument("--no-perf-md", action="store_true")
+                    help="config 5 cheap-tier PANOC iteration cap; lanes "
+                         "that miss it are re-solved at full budget")
     args = ap.parse_args()
 
     for c in args.configs:
         r = CONFIGS[c](args)
         r["source"] = f"examples/bench_suite.py --configs {c}"
         print(json.dumps(r), flush=True)
-        perfdb.record(c, r, write_md=not args.no_perf_md)
+        perfdb.record(c, r)
 
 
 if __name__ == "__main__":
+    from mpc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -48,5 +48,8 @@ def run(obstacle_weight, n_sim=40):
 
 
 if __name__ == "__main__":
+    from mpc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     run(0.0)
     run(1.0)

@@ -2,7 +2,7 @@
 
 Companion to examples/exp_mesh_scaling.py (scenario axis): times the
 blocked associative-scan Riccati (parallel/lqr_sharded.py) with the
-HORIZON axis sharded 1/2/4/8 ways at a long horizon — the cross-chip
+HORIZON axis sharded 1/2/4/8 ways at a long horizon — the cross-device
 long-context axis of SURVEY.md §2.19/§5. Same honest caveat: the box has
 2 physical cores, so the ceiling is ~2x; the signal is that the blocked
 scan's collective overhead (one all_gather of chunk products per scan)
@@ -107,4 +107,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from mpc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

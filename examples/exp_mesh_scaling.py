@@ -103,8 +103,11 @@ def main():
                 f"{row['solves_per_s']} solves/s "
                 f"(speedup x{row['solves_per_s'] / base:.2f}, "
                 f"conv {row['converged_fraction']})")
-        perfdb.record("6", rec, write_md=True)
+        perfdb.record("6", rec)
 
 
 if __name__ == "__main__":
+    from mpc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -1,4 +1,4 @@
-"""TPU experiment: multiple-shooting vs single-shooting at long horizon.
+"""Experiment: multiple-shooting vs single-shooting at long horizon.
 
 BASELINE config #2 shape (dynamic bicycle, Bezier road, N=40, bounded state
 constraints) solved two ways:
@@ -88,7 +88,7 @@ def main():
     ap.add_argument("--variants", nargs="*", default=["ss", "ms", "ilqr"])
     ap.add_argument("--ilqr-alphas", type=int, default=0,
                     help="line-search fan size (0 -> IlqrConfig default)")
-    ap.add_argument("--ilqr-unroll", type=int, default=None)
+    ap.add_argument("--ilqr-unroll", type=int, default=1)
     ap.add_argument("--record", action="store_true",
                     help="write the comparison into .perf_results.json/"
                          "PERF.md (utils/perfdb)")
@@ -106,7 +106,7 @@ def main():
     y0s[:, 3] = rng.uniform(0.2, 0.8, args.batch)
     y0s = jnp.asarray(y0s)
 
-    # bounded unroll: N=40 fully unrolled OOMs the remote compile helper
+    # bounded unroll keeps the N=40 programs' compile time small
     unroll = 8
 
     if "ss" in args.variants:
@@ -138,8 +138,7 @@ def main():
             n_horiz=N, n_segments=args.segments, bound_state_constraints=True,
             alm_cfg=AlmConfig(eps=1e-3, delta=1e-3, max_iter=8, eps_0=1e-2,
                               sigma_0=1e3, penalty_factor=5.0),
-            panoc_cfg=PanocConfig(lbfgs_memory=N, max_iter=150),
-            unroll=None)  # segment length N/M is short; fully unrolled
+            panoc_cfg=PanocConfig(lbfgs_memory=N, max_iter=150))
         bench(f"ms_n40_m{args.segments}", ctrl_ms, cl, y0s, args.n_steps,
               f"segments={args.segments}")
 
@@ -155,4 +154,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from mpc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

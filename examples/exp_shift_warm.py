@@ -1,11 +1,10 @@
-"""TPU experiment: shifted vs verbatim warm starts (the RTI rotation trick).
+"""Experiment: shifted vs verbatim warm starts (the RTI rotation trick).
 
-Round 3 measured that rotating the previous plan by one stage does NOT
-reduce iterations with this solver and removed the flag; the numbers were
-quoted in control/mpc.py without a committed artifact (VERDICT r3 weak #1).
-This re-measures the comparison through the ``warm_prep`` hook (the shift
-costs one roll per step) and records it via utils/perfdb, so the claim in
-control/mpc.py has a reproducible source.
+Compares rotating the previous plan by one stage (through the
+``warm_prep`` hook; the shift costs one roll per step) with reusing it
+verbatim, counting PANOC iterations and failures. This is the source of the
+warm-start note in control/mpc.py; ``--record`` stores the result through
+utils/perfdb.
 
 Run:  python examples/exp_shift_warm.py [--road straight|circle] [--record]
 """
@@ -107,4 +106,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from mpc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

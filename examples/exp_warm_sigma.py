@@ -1,7 +1,7 @@
-"""TPU experiment: ALM warm-started penalties (config #2) + PANOC iteration
+"""Experiment: ALM warm-started penalties (config #2) + PANOC iteration
 cost breakdown for the headline config.
 
-Run on the real chip:  python examples/exp_warm_sigma.py
+Run on the GPU:  python examples/exp_warm_sigma.py
 Prints one JSON line per experiment.
 """
 
@@ -102,7 +102,7 @@ def bench_iteration_cost():
                   (B, 1))
 
     cost = ctrl.problem.cost
-    # raw fused eval: 5 candidates x B lanes, value+grad (per-iteration load)
+    # raw candidate-fan eval: 5 candidates x B lanes, value+grad (per-iteration load)
     n_cand = 5
 
     @jax.jit
@@ -165,5 +165,8 @@ def bench_iteration_cost():
 
 
 if __name__ == "__main__":
+    from mpc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     bench_config2()
     bench_iteration_cost()

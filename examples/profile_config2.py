@@ -1,8 +1,5 @@
-"""TPU profile of BASELINE config #2 (Pacejka, Bezier road, N=40, bounded
+"""Profile of BASELINE config #2 (Pacejka, Bezier road, N=40, bounded
 state constraints) on the AL-iLQR path — where does the per-step time go?
-
-VERDICT r3 task 2: "Profile and close the config #2 gap: >=625 solves/s/chip
-at N=40 or a recorded analysis of the ceiling."
 
 Black-box decomposition: the per-MPC-step cost is
     t_step ~= overhead + n_outer * (t_outer_fixed + n_inner * t_iter)
@@ -11,13 +8,12 @@ per-outer-iteration costs by finite differences, while the iteration
 statistics (mean/max outer+inner per step, straight from AlmResult) say how
 many of each a warm MPC step actually needs.
 
-Run one variant per process (remote TPU compiles are slow and the compile
-helper OOMs on big programs):
+Run one sweep per process:
     python examples/profile_config2.py --batch 256 --sweep iters
     python examples/profile_config2.py --sweep batch
     python examples/profile_config2.py --sweep alphas
-Each prints one JSON line per point; --record writes the sweep into
-.perf_results.json / PERF.md (utils/perfdb).
+Each prints one JSON line per point; --record writes the sweep through
+utils/perfdb.
 """
 
 import os
@@ -61,7 +57,7 @@ def setup(batch):
 
 
 def bench_point(tag, batch, max_outer=8, max_inner=30, n_alphas=0,
-                unroll=None, n_steps=6, n_warm=3, delta=1e-3,
+                unroll=1, n_steps=6, n_warm=3, delta=1e-3,
                 parallel_backward=True):
     cl, y0s = setup(batch)
     alphas = (tuple((0.5 ** i for i in range(n_alphas))) if n_alphas
@@ -188,4 +184,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from mpc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -1,9 +1,7 @@
 """Phase-level profile of the AL-iLQR inner iteration (config #2 shape).
 
-The black-box sweep (profile_config2.py --sweep iters) put one masked inner
-iteration at ~67 ms for batch 256 / N=40, with the ALM outer restart ~free
-and the 6-alpha forward fan ~free (trimming alphas SLOWS the solve). This
-times the three phases of one iteration in isolation — per-stage
+The black-box sweep (profile_config2.py --sweep iters) prices one masked
+inner iteration as a whole. This times the three phases of one iteration in isolation — per-stage
 Gauss-Newton derivatives, the Riccati backward pass (parallel scan vs
 sequential), and the line-search forward fan — by reconstructing them from
 the same public pieces ``solver/ilqr.py`` composes (same math, checked
@@ -32,6 +30,7 @@ from mpc_tpu.models.integrators import discretize
 from mpc_tpu.models.params import VehicleParams
 from mpc_tpu.ops.bezier import bezier_centerline, lane_change_control_points
 from mpc_tpu.ops.costs import DEFAULT_VEHICLE_WEIGHTS, vehicle_stage_residuals
+from mpc_tpu.solver.ilqr import IlqrConfig
 from mpc_tpu.solver.lqr import lqt_solve_parallel, lqt_solve_sequential
 
 PARAMS = VehicleParams()
@@ -82,10 +81,10 @@ def backward(xs, us, lam, sigma, cl, reg, parallel=True):
 
 def backward_only(A, B, Q, q, R, r, P, reg, parallel=True):
     Rr = R + reg * jnp.eye(ID, dtype=A.dtype)
-    # sequential timed at the shipped configuration: unroll=8 at N=40
-    # (solver/ilqr.py _default_unroll)
+    # sequential timed at the shipped configuration (IlqrConfig.unroll)
     lqt = lqt_solve_parallel if parallel \
-        else functools.partial(lqt_solve_sequential, unroll=8)
+        else functools.partial(lqt_solve_sequential,
+                               unroll=IlqrConfig().unroll)
     c = jnp.zeros((N, SD), A.dtype)
     sol = lqt(jnp.zeros((SD,), A.dtype), A, B, c, Q, q, Rr, r,
               jnp.zeros((SD, SD), A.dtype), jnp.zeros((SD,), A.dtype), P=P)
@@ -198,4 +197,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from mpc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

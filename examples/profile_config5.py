@@ -1,10 +1,8 @@
-"""TPU profile of BASELINE config #5 (randomized scenario suite, two-tier).
+"""Profile of BASELINE config #5 (randomized scenario suite, two-tier).
 
-The r4 full-suite run recorded 37.9 solves/s at batch 2048 (54 s per MPC
-step) — far below round 1's single-tier 118. This prints the per-step tier
-breakdown (cheap wall, straggler wall, straggler count) that
-``run_scenario_suite_two_tier`` now collects, so the slow tier is a recorded
-fact instead of a guess.
+Prints the per-step tier breakdown (cheap wall, straggler wall, straggler
+count) that ``run_scenario_suite_two_tier`` collects, so the slow tier is
+measured instead of guessed.
 
 Run:  python examples/profile_config5.py [--batch 512] [--n-sim 6] [--record]
 """
@@ -87,4 +85,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from mpc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

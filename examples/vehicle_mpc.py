@@ -1,6 +1,6 @@
 """Closed-loop vehicle MPC demo — the reference's primary entry point.
 
-TPU-native analogue of ``alpaqa_vehicle_test`` (reference: main.py:62-177):
+JAX-native analogue of ``alpaqa_vehicle_test`` (reference: main.py:62-177):
 400 steps, horizon 12, straight (or circular) 100-point centerline,
 v_ref = 1.0 — but the entire closed loop (solver included) is one compiled
 ``lax.scan``, optionally batched over many initial states.
@@ -93,4 +93,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from mpc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -1,14 +1,15 @@
-"""mpc_tpu — a TPU-native model-predictive-control framework.
+"""mpc_tpu — batched model-predictive control in JAX, run on GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ``panagiotou23/model-predictive-control`` (CasADi + alpaqa, CPU): batched
-vehicle/chain MPC with an ALM + PANOC(+L-BFGS) trajectory optimizer, scaled
-over TPU device meshes via pjit/shard_map.
+vehicle/chain MPC with ALM + PANOC(+L-BFGS) and AL-iLQR trajectory
+optimizers, whole closed loops compiled into one XLA program, scaled over
+device meshes via shard_map. Its accelerator is an NVIDIA H100.
 
 Layering (see SURVEY.md):
   models/    — parameter pytrees, bicycle & hanging-chain ODEs, RK4 discretizer
   ops/       — road geometry, Bezier paths, stage costs, potential fields
-  solver/    — Problem container, PANOC inner solver, ALM outer loop
+  solver/    — Problem container, PANOC/ALM, iLQR/Riccati, matmul precision
   control/   — MPC controllers (warm-started, event-triggered, simple)
   parallel/  — mesh construction, sharded batched solves
   decision/  — game-theoretic lane-change layer

@@ -18,7 +18,7 @@ class PanocConfig:
     Defaults mirror alpaqa's ``StructuredPANOCLBFGSSolver`` setup at
     controller.py:27-37: stop criterion = ProjGradNorm2, max 1000 iterations,
     L-BFGS memory = N_horiz (set per-problem). Wall-clock caps (max_time
-    0.2 s, controller.py:30) have no place inside a compiled TPU loop; the
+    0.2 s, controller.py:30) have no place inside a compiled device loop; the
     static iteration cap plays that role.
     """
     max_iter: int = 1000
@@ -26,7 +26,7 @@ class PanocConfig:
     alpha: float = 0.95              # gamma = alpha / L
     # Line-search grid over the homotopy x(tau) = u - (1-tau) r + tau d.
     # All grid points are evaluated in ONE batched value_and_grad call (data
-    # parallel on the VPU) instead of alpaqa's sequential halving loop; the
+    # parallel on the device) instead of alpaqa's sequential halving loop; the
     # forward-backward fallback (tau=0) is always included, preserving the
     # global convergence guarantee.
     taus: tuple = (1.0, 0.25, 1.0 / 16.0, 1.0 / 64.0)
@@ -70,7 +70,7 @@ class AlmConfig:
     Defaults mirror controller.py:39-48: eps=1e-6 (inner stationarity),
     delta=1e-4 (constraint satisfaction), Sigma_0=1e5 (initial penalty),
     max 1000 outer iterations (we default far lower — ALM converges in a
-    handful of rounds and the cap is a static loop bound on TPU).
+    handful of rounds and the cap is a static loop bound on the device).
     """
     eps: float = 1e-6                # final inner tolerance (stationarity)
     delta: float = 1e-4              # constraint violation tolerance

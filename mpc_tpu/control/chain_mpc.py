@@ -1,6 +1,6 @@
 """Hanging-chain MPC: OCP assembly and controller.
 
-TPU-native re-design of the reference's hanging-chain MPC demo
+JAX-native re-design of the reference's hanging-chain MPC demo
 (reference: alpaqa_example.py:169-232): quadratic tracking cost, cubic ground
 constraint per ball per stage with a *bounded* D (alpaqa_example.py:212 —
 unlike the vehicle OCP this exercises the full ALM multiplier loop), input

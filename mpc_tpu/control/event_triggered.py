@@ -7,7 +7,7 @@ event-triggered MPC: re-solve the OCP only when the plant deviates from the
 last predicted trajectory by more than a threshold (or when the stored input
 sequence runs out); otherwise replay the stored open-loop input.
 
-TPU-native batching: a per-lane ``lax.cond`` would degenerate to computing
+Batching: a per-lane ``lax.cond`` would degenerate to computing
 both branches under vmap. Instead the trigger sets the lane's solver
 tolerance to +inf: the PANOC/ALM ``while_loop`` sees such lanes converged at
 iteration 0 and freezes them, so a batch where few lanes trigger costs only

@@ -1,6 +1,6 @@
 """Warm-started MPC controllers.
 
-TPU-native equivalent of the reference's ``MPCController``
+JAX-native equivalent of the reference's ``MPCController``
 (reference: controller.py:10-69) and the vehicle OCP assembly
 (reference: main.py:25-59). The controller is *functional*: its carried state
 (warm-start inputs U and multipliers lam, plus iteration/failure counters —
@@ -69,8 +69,8 @@ class MpcController:
     # NOTE on warm-start shifting (the standard RTI/MPC trick of rotating
     # the previous plan by one stage): measured and NOT shipped — on the
     # straight road it costs ~20% more PANOC iterations, on the circle it
-    # saves ~11% but introduces convergence failures (recorded artifact:
-    # PERF.md section 11, examples/exp_shift_warm.py --record), because the
+    # saves ~11% but introduces convergence failures
+    # (examples/exp_shift_warm.py), because the
     # carried gamma corresponds to the unshifted point and the re-estimate
     # costs more than the shifted guess saves. A caller who wants it anyway
     # can pass the rotation as ``warm_prep``; the reference reuses U
@@ -145,8 +145,6 @@ def build_vehicle_ocp(n_horiz: int = 12, centerline_size: int = 100,
                       bound_state_constraints: bool = False,
                       errors_fn=None, window: Optional[int] = None,
                       model: str = "pacejka",
-                      fused: Optional[str] = None,
-                      fused_block_e: int = 256,
                       unroll: Optional[int] = None,
                       obstacle_weight: float = 0.0,
                       obstacle_field_kwargs: Optional[dict] = None) -> Problem:
@@ -243,34 +241,6 @@ def build_vehicle_ocp(n_horiz: int = 12, centerline_size: int = 100,
     if obstacle_weight > 0.0:
         problem = dataclasses.replace(problem, uses_obstacles=True)
 
-    if fused is not None:
-        if window is not None or errors_fn is not None:
-            raise ValueError("fused cost evaluation supports only the dense "
-                             "full-centerline error path")
-        if obstacle_weight > 0.0:
-            raise ValueError("fused cost evaluation does not include the "
-                             "obstacle field term")
-        from mpc_tpu.ops.fused_psi import (make_vehicle_al_multi,
-                                           make_vehicle_cost_multi)
-        cost_multi = make_vehicle_cost_multi(
-            n_horiz, ts=ts, v_ref=v_ref, weights=weights, model=model,
-            backend=fused, block_e=fused_block_e, unroll=unroll,
-            params=params)
-        al_multi = None
-        if bound_state_constraints and m:
-            al = make_vehicle_al_multi(
-                n_horiz, STATE_CONSTRAINT_OFFSETS, D.lower, D.upper, ts=ts,
-                v_ref=v_ref, weights=weights, model=model, backend=fused,
-                block_e=fused_block_e, unroll=unroll, params=params)
-
-            def al_multi(cands, param, lam, sigma):
-                return al(cands, param["y0"], param["centerline"], param["p"],
-                          lam, sigma)
-        problem = dataclasses.replace(
-            problem,
-            cost_multi=lambda cands, param: cost_multi(
-                cands, param["y0"], param["centerline"], param["p"]),
-            al_multi=al_multi)
     return problem
 
 
@@ -283,8 +253,6 @@ def build_vehicle_controller(n_horiz: int = 12, centerline_size: int = 100,
                              window: Optional[int] = None,
                              model: str = "pacejka",
                              weights=DEFAULT_VEHICLE_WEIGHTS,
-                             fused: Optional[str] = None,
-                             fused_block_e: int = 256,
                              unroll: Optional[int] = None,
                              obstacle_weight: float = 0.0,
                              obstacle_field_kwargs: Optional[dict] = None) -> MpcController:
@@ -297,8 +265,7 @@ def build_vehicle_controller(n_horiz: int = 12, centerline_size: int = 100,
     problem = build_vehicle_ocp(n_horiz, centerline_size, v_ref, ts, params,
                                 weights=weights,
                                 bound_state_constraints=bound_state_constraints,
-                                window=window, model=model, fused=fused,
-                                fused_block_e=fused_block_e, unroll=unroll,
+                                window=window, model=model, unroll=unroll,
                                 obstacle_weight=obstacle_weight,
                                 obstacle_field_kwargs=obstacle_field_kwargs)
     if alm_cfg is None:
@@ -337,7 +304,7 @@ def build_vehicle_ilqr_controller(n_horiz: int = 40, v_ref: float = 1.0,
     (parallel/mesh.py:make_horizon_mesh). When given, returns the
     *batch-native* ``BatchedMpcController`` whose Riccati backward runs
     horizon-sharded over the mesh (parallel/ilqr_sharded.py) — the
-    cross-chip horizon axis of SURVEY.md §2.19; carries/params then take a
+    cross-device horizon axis of SURVEY.md §2.19; carries/params then take a
     leading batch axis (divisible by the mesh's scenario axis) instead of
     being vmapped per lane.
     """

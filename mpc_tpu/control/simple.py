@@ -1,6 +1,6 @@
 """Simple baseline controllers.
 
-TPU-native equivalents of the reference's non-alpaqa controllers
+JAX-native equivalents of the reference's non-alpaqa controllers
 (controller.py:72-156):
 
 - ``simple_mpc``: the scipy ``minimize`` single-shooting controller

@@ -1,6 +1,6 @@
 """Game-theoretic lane-change decision layer — vectorized, batched.
 
-TPU-native re-design of the reference's scalar/OO implementation
+JAX-native re-design of the reference's scalar/OO implementation
 (reference: game_theory.py:21-244). Cars are structure-of-arrays with an
 active mask (fixed MAX_CARS shape), every payoff is computed for all cars at
 once, and whole scenario batches evaluate under one vmap — the reference's

@@ -3,7 +3,7 @@
 Compiles ``native/scenario_gen.cpp`` on first use (cached as a shared
 library next to the source; rebuilt when the source or ABI changes) and
 exposes :func:`generate_scenarios` filling numpy buffers from a C++ thread
-pool — the host-side data path that overlaps scenario generation with TPU
+pool — the host-side data path that overlaps scenario generation with device
 execution. Falls back transparently to the pure-JAX generator
 (mpc_tpu.sim.scenarios.random_scenarios) when no C++ toolchain is available.
 """

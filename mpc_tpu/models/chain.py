@@ -1,6 +1,6 @@
 """Hanging-chain model — the second workload proving the solver is model-agnostic.
 
-TPU-native re-design of the reference's hanging-chain MPC demo
+JAX-native re-design of the reference's hanging-chain MPC demo
 (reference: alpaqa_example.py:23-141). A chain of N balls connected by
 springs; the free end (ball N+1) is velocity-controlled. State layout matches
 the reference (alpaqa_example.py:28-33):
@@ -9,7 +9,7 @@ the reference (alpaqa_example.py:28-33):
   u = free-end velocity (d,)
 
 The spring forces are computed **vectorized over balls** (the reference builds
-them in a Python loop over CasADi symbols, alpaqa_example.py:52-62) — on TPU
+them in a Python loop over CasADi symbols, alpaqa_example.py:52-62) — here
 the per-ball loop becomes one array op over a (N+1, d) stack of segments.
 """
 

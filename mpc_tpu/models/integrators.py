@@ -1,6 +1,6 @@
 """Fixed-step integrators and horizon rollouts.
 
-TPU-native replacement for CasADi's ``integrator("rk", ...)`` +
+JAX-native replacement for CasADi's ``integrator("rk", ...)`` +
 ``Function.mapaccum`` pipeline (reference: car_dynamics.py:136-147,159-166,
 alpaqa_example.py:69-80,102-114). CasADi's "rk" plugin with
 ``number_of_finite_elements=4`` and ``tf=Ts`` performs 4 classical RK4 steps

@@ -1,10 +1,10 @@
 """Vehicle parameter pytree.
 
-TPU-native equivalent of the reference's ``VehicleParameters`` plain class
+JAX-native equivalent of the reference's ``VehicleParameters`` plain class
 (reference: dynamics.py:4-42) and the flat 22-element parameter vector used by
 the symbolic model (reference: car_dynamics.py:65-88, main.py:88-111).
 
-Design notes (TPU-first):
+Design notes:
 - A single frozen dataclass registered as a JAX pytree. Every field is a leaf,
   so a ``VehicleParams`` can carry scalars *or* batched arrays — the same
   dynamics function serves one car or a sharded batch of 100k cars via vmap.

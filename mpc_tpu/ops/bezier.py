@@ -1,10 +1,10 @@
 """Quintic Bezier lane-change path generation.
 
-TPU-native re-design of the reference's Bezier module
+JAX-native re-design of the reference's Bezier module
 (reference: bezier_curves.py:1-66, duplicated verbatim at game_theory.py:8-18
 and game_theory.py:92-113). The reference evaluates the curve point-by-point
 in a Python loop over the 6 Bernstein terms; here evaluation is a single
-einsum over a precomputed Bernstein basis matrix — one MXU-friendly matmul
+einsum over a precomputed Bernstein basis matrix — one matmul
 for any number of samples and any batch of control-point sets.
 
 Geometry of the lane-change envelope (reference: bezier_curves.py:5-12,28-48):

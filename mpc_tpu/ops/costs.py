@@ -1,6 +1,6 @@
 """Stage costs for the MPC optimal-control problems.
 
-TPU-native equivalent of the reference's symbolic cost generators
+JAX-native equivalent of the reference's symbolic cost generators
 (vehicle: car_dynamics.py:230-258; hanging chain: alpaqa_example.py:129-141).
 Pure functions over (state, input, parameters) — traced once inside the OCP
 objective, differentiated with ``jax.grad`` (replacing CasADi autodiff).

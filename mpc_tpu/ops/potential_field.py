@@ -1,6 +1,6 @@
 """Driving potential fields — obstacle risk, lane keeping, road boundaries.
 
-TPU-native re-design of the reference's visualization-only module
+JAX-native re-design of the reference's visualization-only module
 (reference: dpf_test.py:45-118; never wired into a controller there). Here
 the fields are pure JAX functions evaluated over arbitrary batches of points
 and obstacle sets, so they can (a) render the reference's heatmaps and (b)

@@ -1,6 +1,6 @@
 """Road geometry: centerlines, nearest-point lookup, tracking errors.
 
-TPU-native replacement for both of the reference's road-error implementations:
+JAX-native replacement for both of the reference's road-error implementations:
 
 - numpy ``Road`` (reference: road.py:4-81) — normalized CTE/pos error, used for
   diagnostics;
@@ -10,7 +10,7 @@ TPU-native replacement for both of the reference's road-error implementations:
 
 The reference's symbolic nearest-point search is an O(size) chain of
 ``cs.if_else`` selections (car_dynamics.py:180-192) only because CasADi lacks
-data-dependent indexing. On TPU the search is a single batched distance
+data-dependent indexing. Here the search is a single batched distance
 computation + ``argmin`` — trivially parallel and vmap-able; we do NOT
 replicate the scalar chain.
 

@@ -1,11 +1,11 @@
 """Multi-process worker for the jax.distributed integration test.
 
 Run as ``python -m mpc_tpu.parallel._dist_worker <port> <pid> <nproc> <out>``
-— one process per host of a simulated pod (CPU backend, 4 virtual devices
+— one process per simulated host (CPU backend, 4 virtual devices
 per process). Exercises the real multi-process path the single-process tests
 cannot: ``jax.distributed.initialize`` (coordinator handshake), a global
 mesh spanning both processes' devices, ``make_array_from_process_local_data``
-(each process feeds only its local scenario shard — the DCN-boundary data
+(each process feeds only its local scenario shard — the cross-host data
 path), a sharded batched solve, and a cross-process allgather of the result.
 
 Process 0 writes the gathered solutions to ``out`` (.npy); the parent test

@@ -1,20 +1,21 @@
-"""Multi-host initialization and pod-scale mesh construction.
+"""Multi-process initialization and the global device mesh.
 
-The communication layer the reference never had (SURVEY.md 2.19): on TPU the
-transport is XLA collectives — ICI within a slice, DCN across hosts — so
-"backend setup" reduces to ``jax.distributed.initialize`` plus a mesh whose
-axis order keeps the heavy collectives on ICI.
+The communication layer the reference never had (SURVEY.md 2.19): the
+transport is XLA collectives (NCCL on GPUs), so "backend setup" reduces to
+``jax.distributed.initialize`` plus a mesh over every process's devices.
 
-Usage on each host of a pod slice:
+Usage in each process:
 
     from mpc_tpu.parallel.distributed import initialize, pod_mesh
-    initialize()                  # no-op on single-process runs
-    mesh = pod_mesh(n_model=1)    # scenario axis spans all global devices
+    initialize(coordinator_address="localhost:12345", num_processes=2,
+               process_id=0)       # no-op on single-process runs
+    mesh = pod_mesh(n_model=1)     # scenario axis spans all global devices
 
-Scenario data parallelism needs no cross-device traffic during a solve, so
-sharding scenarios across hosts (DCN boundary) is free; the model/SP axis
-(ppermute/all_gather per cost evaluation) is laid out within-host first so
-its collectives ride ICI.
+The GPUs of one host are joined all to all (NVLink), so within a host the
+mesh follows the algorithm alone. Scenario data parallelism needs no
+cross-device traffic during a solve, so sharding scenarios across hosts is
+free; the model/SP axis (ppermute/all_gather per cost evaluation) is laid
+out within a host first so its collectives stay on the host's links.
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Initialize jax.distributed when running multi-process.
 
-    With no arguments, reads the standard env (JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID or cloud-TPU metadata); silently
-    no-ops for single-process runs so the same script works everywhere.
+    Without a coordinator address or a process count above one (in the
+    arguments or the JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES env),
+    silently no-ops, so the same script runs single-process. A multi-process
+    run on GPUs must pass all three: nothing discovers a cluster by
+    itself.
     """
     multi = (coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
              or (num_processes or 0) > 1
@@ -55,8 +58,8 @@ def pod_mesh(n_model: int = 1) -> Mesh:
 
     Device order groups each host's local devices contiguously; with the
     model axis as the fastest-varying (innermost) dimension, every model-axis
-    collective stays within a host's devices (ICI), and only the
-    embarrassingly-parallel scenario axis spans hosts (DCN).
+    collective stays within one host, and only the embarrassingly-parallel
+    scenario axis spans hosts.
     """
     devices = jax.devices()
     n = len(devices)

@@ -3,8 +3,8 @@
 ``solver/ilqr.py``'s solver family is per-lane (callers ``vmap`` it); its
 Riccati backward therefore runs per lane on one device, and the
 horizon-sharded blocked scan (``parallel/lqr_sharded.py``) was unreachable
-from any OCP — a library function no controller could call (VERDICT r4
-missing #4). This module closes that gap: a *natively batched* AL-iLQR
+from any OCP — a library function no controller could call. This module
+closes that gap: a *natively batched* AL-iLQR
 whose linear-quadratic subproblem is solved for the whole batch in one
 call, dispatching to
 
@@ -15,7 +15,7 @@ call, dispatching to
   device mesh (``make_lqt_horizon_sharded``) when a mesh is given: the
   per-stage element construction and gains are embarrassingly parallel,
   and the only cross-device traffic is the tiny all_gather carry exchange
-  of the blocked scans riding ICI (SURVEY.md §2.19 horizon axis, §5
+  of the blocked scans (SURVEY.md §2.19 horizon axis, §5
   long-context row).
 
 Lane semantics mirror ``solver/ilqr.py`` exactly (same exits, same
@@ -43,9 +43,10 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from mpc_tpu.solver.ilqr import (IlqrConfig, IlqrResult,
-                                 _assert_stage_uniform, _default_unroll)
+from mpc_tpu.solver.ilqr import (IlqrConfig, IlqrResult, resolve_unroll,
+                                 _assert_stage_uniform)
 from mpc_tpu.solver.lqr import lqt_solve_parallel, lqt_solve_sequential
+from mpc_tpu.solver.precision import pinned_precision
 from mpc_tpu.solver.problem import Box
 from mpc_tpu.parallel.lqr_sharded import make_lqt_horizon_sharded
 
@@ -58,7 +59,7 @@ def _lqt_batched(cfg: IlqrConfig, n_horiz: int, mesh: Optional[Mesh]):
         base = lqt_solve_parallel
     else:
         base = functools.partial(lqt_solve_sequential,
-                                 unroll=_default_unroll(cfg, n_horiz))
+                                 unroll=resolve_unroll(cfg, n_horiz))
     return jax.vmap(
         lambda x0, A, B, c, Q, q, R, r, QN, qN, P: base(
             x0, A, B, c, Q, q, R, r, QN, qN, P=P),
@@ -97,7 +98,7 @@ def make_ilqr_solver_batched(f_d: Callable, stage_cost: Callable,
     ``skip`` is (B,) bool. Returns a batched :class:`IlqrResult`
     (``trace=None``).
     """
-    unroll = _default_unroll(cfg, n_horiz)
+    unroll = resolve_unroll(cfg, n_horiz)
     lqt_b = _lqt_batched(cfg, n_horiz, mesh)
 
     if u_box is not None:
@@ -270,7 +271,7 @@ def make_ilqr_solver_batched(f_d: Callable, stage_cost: Callable,
                           converged=st.converged, iterations=st.iters,
                           grad_norm=st.grad_norm, trace=None)
 
-    return solve
+    return pinned_precision(solve)
 
 
 def make_al_ilqr_solver_batched(f_d: Callable, stage_cost: Callable,
@@ -326,7 +327,7 @@ def make_al_ilqr_solver_batched(f_d: Callable, stage_cost: Callable,
                 sigma=sigma, gamma=jnp.zeros((Bb,), dtype),
                 inner_trace=None)
 
-        return solve
+        return pinned_precision(solve)
 
     _assert_stage_uniform(D.lower, n_horiz, n_stage_constraints, "D.lower")
     _assert_stage_uniform(D.upper, n_horiz, n_stage_constraints, "D.upper")
@@ -439,7 +440,7 @@ def make_al_ilqr_solver_batched(f_d: Callable, stage_cost: Callable,
             sigma=sigma_out, gamma=jnp.zeros((Bb,), dtype),
             inner_trace=None)
 
-    return solve
+    return pinned_precision(solve)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,8 @@
 ``solver/lqr.py``'s associative-scan Riccati is O(log N) *depth* but runs on
 one device. This module shards the two associative scans (the backward
 value-element scan and the forward affine-rollout scan) across a ``horizon``
-mesh axis — the cross-chip half of SURVEY.md §2.19 ("parallel-scan Riccati
-... reduced via ICI collectives along a `horizon` mesh axis") and the §5
+mesh axis — the cross-device half of SURVEY.md §2.19 (parallel-scan Riccati
+reduced via collectives along a `horizon` mesh axis) and the §5
 long-context row. The reference has no counterpart: its rollout is a
 sequential CasADi ``mapaccum`` chain (reference: car_dynamics.py:159-166).
 
@@ -12,7 +12,7 @@ Blocked associative scan (the classic three-phase scheme):
   1. each device runs a *local* ``lax.associative_scan`` over its chunk;
   2. one ``all_gather`` of the per-device chunk products (tiny: one element
      per device) + a log(P)-depth scan over them yields each device's
-     cross-chunk carry — this is the only ICI traffic;
+     cross-chunk carry — this is the only cross-device traffic;
   3. one vectorized combine folds the carry into the local results.
 
 Per-stage math (tilde transforms, element construction, gains) is
@@ -36,6 +36,7 @@ from jax.sharding import Mesh, PartitionSpec as PS
 from mpc_tpu.parallel.mesh import HORIZON_AXIS, SCENARIO_AXIS
 from mpc_tpu.solver.lqr import (LqtSolution, _Elem, _combine,
                                 _eliminate_cross_terms, _gains)
+from mpc_tpu.solver.precision import pinned_precision
 
 
 def _flip0(tree):
@@ -205,4 +206,4 @@ def make_lqt_horizon_sharded(mesh: Mesh, horizon_axis: str = HORIZON_AXIS,
             Ss=sw(Ss), vs=sw(vs),
             Ko=sw(Ks + sw(Rinv_P)), ko=sw(kffs + sw(Rinv_r)))
 
-    return solve
+    return pinned_precision(solve)

@@ -1,14 +1,17 @@
-"""Device-mesh construction for scaling MPC over TPU slices.
+"""Device-mesh construction for scaling MPC over several devices.
 
 The reference is a single-threaded CPU loop (SURVEY.md 2.19) — this layer is
-new, designed TPU-first. Axes:
+new, designed batch-first. Axes:
 
 - ``scenario``: data parallelism over (initial state, road, params) tuples —
   the dominant scaling axis for batched MPC (thousands of solves per step).
 - ``model``: sequence-parallel axis over road-centerline points (distributed
   nearest-point search) and long-horizon cost chunks — the TP/SP analogue.
 
-Within a slice the collectives ride ICI; across hosts jax.distributed + DCN.
+The GPUs of one host are joined all to all, so the mesh shape follows the
+algorithm alone: any (scenario, model) or (scenario, horizon) factorization
+of the device count has the same link bandwidth on every axis. Across hosts,
+jax.distributed (parallel/distributed.py) joins the processes.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ nearest-point search dominates the stage cost (in the reference it is an
 O(size) symbolic if_else chain *per stage*, car_dynamics.py:180-192 — the hot
 loop of the whole solve, SURVEY.md 3.1). Here each device holds a chunk of
 the centerline, computes local distances, and the global selection uses two
-ICI collectives:
+collectives:
 
 - ``ppermute`` ring halo exchange for the cross-chunk previous/next points;
 - ``all_gather`` of one candidate tuple per device + replicated argmin.

@@ -1,10 +1,11 @@
 """Sharded batched MPC solves over a (scenario, model) device mesh.
 
-The TPU-native replacement for everything the reference *lacks*
+The JAX-native replacement for everything the reference *lacks*
 (SURVEY.md 2.19): scenario data parallelism via ``shard_map`` over the
 ``scenario`` axis and sequence parallelism over the ``model`` axis for the
-road-geometry search. Collectives (ppermute/all_gather) ride ICI inside a
-slice; multi-host runs add DCN via jax.distributed with the same code.
+road-geometry search. Collectives (ppermute/all_gather) run over the
+devices' links; multi-host runs join through jax.distributed with the same
+code.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ def make_sharded_vehicle_solver(mesh: Mesh, n_horiz: int = 12,
                                 v_ref: float = 1.0, ts: float = 0.05,
                                 weights=DEFAULT_VEHICLE_WEIGHTS,
                                 alm_cfg: Optional[AlmConfig] = None,
-                                panoc_cfg: Optional[PanocConfig] = None):
+                                panoc_cfg: Optional[PanocConfig] = None,
+                                unroll: Optional[int] = None):
     """Build a jitted sharded batch solver.
 
     Returns ``solve_batch(y0s, centerline, params, U0s, lam0s)`` where
@@ -42,7 +44,8 @@ def make_sharded_vehicle_solver(mesh: Mesh, n_horiz: int = 12,
 
     Output: per-scenario optimal U, multipliers, convergence mask, iteration
     counts — sharded like the inputs. B must divide by the scenario-axis
-    size; ``centerline_size`` by the model-axis size.
+    size; ``centerline_size`` by the model-axis size. ``unroll`` is the
+    rollout scan's unroll factor (``build_vehicle_ocp``).
     """
     if alm_cfg is None:
         alm_cfg = AlmConfig(eps=1e-5)
@@ -56,7 +59,8 @@ def make_sharded_vehicle_solver(mesh: Mesh, n_horiz: int = 12,
         errors_fn = None
 
     problem = build_vehicle_ocp(n_horiz, centerline_size, v_ref, ts,
-                                weights=weights, errors_fn=errors_fn)
+                                weights=weights, errors_fn=errors_fn,
+                                unroll=unroll)
     solve = make_alm_solver(problem, alm_cfg, panoc_cfg)
 
     def shard_fn(y0s, cl_local, params, U0s, lam0s):

@@ -1,6 +1,6 @@
 """Closed-loop simulation drivers.
 
-TPU-native equivalent of the reference's closed-loop scripts
+JAX-native equivalent of the reference's closed-loop scripts
 (vehicle: main.py:62-167; chain: alpaqa_example.py:267-282). The reference
 runs a 400-step Python for-loop crossing the pybind11 boundary every step;
 here the whole closed loop is one ``lax.scan`` — solver included — compiled

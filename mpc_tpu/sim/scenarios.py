@@ -1,7 +1,7 @@
 """Randomized scenario suites — generation and end-to-end rollout.
 
-BASELINE.json config #5: "10k randomized road/obstacle scenarios rolled out
-end-to-end on the pod slice". The reference has no scenario machinery at all
+BASELINE.json config #5: 10k randomized road/obstacle scenarios rolled out
+end to end. The reference has no scenario machinery at all
 (its roads are two hardcoded centerlines, main.py:11-22); this module
 generates batches of randomized roads (straight / arc / Bezier lane-change)
 and initial states on device with jax.random, and rolls the whole suite
@@ -123,8 +123,8 @@ def run_scenario_suite(controller: MpcController, f_d, scenarios: ScenarioBatch,
 
 # jitted two-tier step functions, cached across run_scenario_suite_two_tier
 # calls: a fresh ``@jax.jit`` closure per call made every warm-up useless —
-# the timed run re-traced and re-compiled both tiers from scratch (~2 min of
-# the 9-min r4 config-5 wall). Keyed by object identity; the cached closures
+# the timed run re-traced and re-compiled both tiers from scratch. Keyed by
+# object identity; the cached closures
 # hold strong references to their key objects, so the ids stay valid.
 # Bounded (LRU, newest-last dict order): the pinned controller/params
 # objects and their compiled executables would otherwise accumulate without
@@ -175,8 +175,7 @@ def run_scenario_suite_two_tier(controller: MpcController,
 
     A batched ``lax.scan`` closed loop runs every lane in lockstep: each MPC
     step costs the MAX iteration count over the batch, so on randomized
-    scenarios a handful of hard lanes tax every easy lane (measured 33x
-    collapse vs the uniform-scenario headline, PERF.md round 1). Two tiers:
+    scenarios a handful of hard lanes tax every easy lane. Two tiers:
 
     1. *cheap pass* — one batched step through ``controller_cheap`` (same
        OCP, low iteration caps): bounded wall-clock per step;
@@ -206,11 +205,9 @@ def run_scenario_suite_two_tier(controller: MpcController,
         # Pre-compile the WHOLE straggler code path (gathers + full-tier
         # step + scatters) for every pad shape this suite can hit
         # (straggler_pad * 2^j up to b): a first-seen pad shape otherwise
-        # pays its remote compiles DURING the rollout — 105 s for the
-        # full-tier program plus ~4 s of eager gather/scatter kernels at
-        # the first pad-256 straggler step at batch 2048, cheap_iters=40
-        # (measured r5, PERF "10"). Idempotent across calls: jit caches
-        # per shape.
+        # pays its compiles (the full-tier program and the eager
+        # gather/scatter kernels) DURING the rollout. Idempotent across
+        # calls: jit caches per shape.
         k = straggler_pad
         while True:
             idx_j = jnp.asarray(np.arange(k) % b)
@@ -259,10 +256,7 @@ def run_scenario_suite_two_tier(controller: MpcController,
             # (deterministic batched program), so duplicate .at[].set
             # writes agree. Slicing to the genuine bad.size lanes instead
             # would create bad.size-SHAPED gather/scatter programs — a
-            # fresh ~11 s remote compile for every straggler count never
-            # seen before, which was the entire config-5 regression
-            # (measured r5: every 11-s straggler step was the first
-            # occurrence of a bad.size; repeats cost 0.2 s — PERF "10").
+            # fresh compile for every straggler count never seen before.
             scatter = lambda dst, src: jax.tree_util.tree_map(
                 lambda d, s: d.at[idx_j].set(s), dst, src)
             ys2 = ys2.at[idx_j].set(ys_r)
@@ -282,7 +276,7 @@ def run_scenario_suite_resumable(controller: MpcController, f_d,
                                  checkpoint_path: Optional[str] = None):
     """Chunked suite rollout with checkpoint/resume between segments.
 
-    For pod-scale 10k-rollout runs (SURVEY.md §5 checkpoint/resume row): the
+    For large 10k-rollout runs (SURVEY.md §5 checkpoint/resume row): the
     closed loop advances ``segment`` steps per compiled call; after each
     segment the full suite state (plant states + warm-start carries + step
     index) is written atomically, and an interrupted run resumes from the

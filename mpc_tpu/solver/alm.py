@@ -1,4 +1,4 @@
-"""Augmented-Lagrangian (ALM) outer loop — pure JAX, batched, TPU-native.
+"""Augmented-Lagrangian (ALM) outer loop — pure JAX, batched, jit/vmap-able.
 
 Replaces alpaqa's C++ ``ALMSolver`` (reference: controller.py:39-48):
 general constraints ``g(u) in D`` are handled by a shifted-penalty augmented
@@ -19,7 +19,7 @@ When D is unbounded (the vehicle OCP: main.py:57 leaves D at +-inf) the AL
 term vanishes identically; the builder detects this *statically* and emits a
 single full-tolerance PANOC solve — no outer loop is traced at all.
 
-TPU-first: the outer loop is a ``lax.while_loop`` with per-lane convergence
+Batch-first: the outer loop is a ``lax.while_loop`` with per-lane convergence
 masks, so the whole (outer x inner) solver vmaps over scenario batches and
 shards over a mesh; one divergent scenario cannot stall the rest.
 """
@@ -33,6 +33,7 @@ import jax.numpy as jnp
 
 from mpc_tpu.config import AlmConfig, PanocConfig
 from mpc_tpu.solver.panoc import make_panoc_solver, _tree_where
+from mpc_tpu.solver.precision import pinned_precision
 from mpc_tpu.solver.problem import Problem, project
 
 
@@ -101,13 +102,7 @@ def make_alm_solver(problem: Problem, alm_cfg: AlmConfig = AlmConfig(),
             param = args
             return jax.value_and_grad(problem.cost)(u, param)
 
-        psi_vg_multi = None
-        if problem.cost_multi is not None:
-            def psi_vg_multi(cands, args):
-                return problem.cost_multi(cands, args)
-
-        panoc = make_panoc_solver(psi_vg, problem.C, panoc_cfg,
-                                  psi_vg_multi=psi_vg_multi)
+        panoc = make_panoc_solver(psi_vg, problem.C, panoc_cfg)
 
         def solve(param, u0, lam0, tol=None, sigma0=None, gamma0=None):
             # ``tol`` overrides the configured tolerance per call; +inf makes
@@ -130,7 +125,7 @@ def make_alm_solver(problem: Problem, alm_cfg: AlmConfig = AlmConfig(),
                 inner_trace=res.trace,
             )
 
-        return solve
+        return pinned_precision(solve)
 
     # ---- general-constraint path -----------------------------------------
     def psi_vg(u, args):
@@ -145,14 +140,7 @@ def make_alm_solver(problem: Problem, alm_cfg: AlmConfig = AlmConfig(),
 
         return jax.value_and_grad(psi)(u)
 
-    psi_vg_multi = None
-    if problem.al_multi is not None:
-        def psi_vg_multi(cands, args):
-            param, lam, sigma = args
-            return problem.al_multi(cands, param, lam, sigma)
-
-    panoc = make_panoc_solver(psi_vg, problem.C, panoc_cfg,
-                              psi_vg_multi=psi_vg_multi)
+    panoc = make_panoc_solver(psi_vg, problem.C, panoc_cfg)
 
     def solve(param, u0, lam0, tol=None, sigma0=None, gamma0=None):
         dtype = u0.dtype
@@ -308,4 +296,4 @@ def make_alm_solver(problem: Problem, alm_cfg: AlmConfig = AlmConfig(),
             inner_trace=st.inner_trace,
         )
 
-    return solve
+    return pinned_precision(solve)

@@ -33,6 +33,8 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from mpc_tpu.solver.precision import pinned_precision
+
 
 class LqtSolution(NamedTuple):
     xs: jnp.ndarray    # (N+1, n) optimal state trajectory
@@ -81,17 +83,18 @@ def _value_step(S_next, v_next, A, B, c, Q, q, K):
     return S, v
 
 
+@pinned_precision
 def lqt_solve_sequential(x0, A, B, c, Q, q, R, r, QN, qN, P=None, unroll=1):
     """Classic O(N)-depth Riccati backward pass + closed-loop forward pass.
 
     Shapes: A (N,n,n), B (N,n,m), c (N,n), Q (N,n,n), q (N,n), R (N,m,m),
     r (N,m), QN (n,n), qN (n,), optional cross term P (N,m,n).
 
-    ``unroll`` is forwarded to both scans: at batch >= 128 the whole solve
-    is throughput-bound on tiny batched matrix ops and this sequential pass
-    beats the associative scan ~5x (recorded: PERF.md "9-phases" — the
-    parallel scan's O(log N) depth only pays off when the batch is too
-    small to fill the chip); unrolling fuses blocks of the N tiny steps.
+    ``unroll`` is forwarded to both scans; unrolling fuses blocks of the N
+    tiny steps. At throughput batches the whole solve is bound by tiny
+    batched matrix ops, where this pass needs far fewer of them than the
+    associative scan, whose O(log N) depth pays only when the batch is too
+    small to fill the device.
     """
     N, n = A.shape[0], A.shape[1]
     if P is None:
@@ -176,6 +179,7 @@ def _combine(ei: _Elem, ej: _Elem) -> _Elem:
     )
 
 
+@pinned_precision
 def lqt_solve_parallel(x0, A, B, c, Q, q, R, r, QN, qN, P=None):
     """O(log N)-depth LQT solve via ``jax.lax.associative_scan``.
 

@@ -3,7 +3,7 @@
 The single-shooting OCP (solver/problem.py:build_ocp_problem) evaluates its
 cost through an N-step sequential rollout — sequential depth N per cost/
 gradient evaluation, the long-horizon bottleneck (BASELINE.json config #2,
-N=40; SURVEY.md §5 'long-context' row). Multiple shooting is the TPU-native
+N=40; SURVEY.md §5 'long-context' row). Multiple shooting is the data-parallel
 counter: split the horizon into M segments with the intermediate segment
 start states added to the decision vector,
 
@@ -30,7 +30,7 @@ from typing import Callable, NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 
-from mpc_tpu.solver.problem import Box, Problem
+from mpc_tpu.solver.problem import Box, Problem, default_unroll
 
 
 class MsLayout(NamedTuple):
@@ -93,9 +93,8 @@ def build_ms_ocp_problem(f_d: Callable, stage_cost: Callable, n_horiz: int,
         raise ValueError(f"horizon {n_horiz} not divisible by {n_segments}")
     lo = MsLayout(n_horiz, n_segments, n_horiz // n_segments, state_dim,
                   input_dim)
-
     if unroll is None:
-        unroll = lo.seg_len if jax.default_backend() != "cpu" else 1
+        unroll = default_unroll(lo.seg_len)
 
     def _prep(param):
         return param_prep(param) if param_prep is not None else param

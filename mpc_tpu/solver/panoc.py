@@ -1,4 +1,4 @@
-"""PANOC inner solver with L-BFGS acceleration — pure JAX, batched, TPU-native.
+"""PANOC inner solver with L-BFGS acceleration — pure JAX, batched, jit/vmap-able.
 
 Replaces alpaqa's C++ ``StructuredPANOCLBFGSSolver``
 (reference: controller.py:27-37): projected-gradient (forward-backward) steps
@@ -6,7 +6,7 @@ on the box C, accelerated by an L-BFGS model of the fixed-point residual,
 with the ``ProjGradNorm2`` stopping criterion ``||u - Pi_C(u - g*grad)|| / g``
 and an L-BFGS memory of ``N_horiz`` (controller.py:36).
 
-TPU-first design decisions (vs a line-by-line translation of the C++):
+Design decisions (vs a line-by-line translation of the C++):
 - Fixed shapes everywhere: the L-BFGS history is a static ring buffer with
   validity masks; iteration runs in a ``lax.while_loop`` with a static cap,
   so the whole solver jits, vmaps over scenario batches, and shards over a
@@ -118,7 +118,7 @@ class PanocTrace(NamedTuple):
     """Optional per-iterate history (``PanocConfig.trace=True``).
 
     Fixed-size buffers of length ``max_iter`` (static — jit/vmap/scan safe);
-    rows past ``iterations`` keep NaN. The TPU-native replacement for
+    rows past ``iterations`` keep NaN. The JAX-native replacement for
     alpaqa's streaming progress callback (reference: controller.py:23-24,38)
     — debugging a divergent lane means reading its buffer instead of
     grepping prints.
@@ -160,23 +160,18 @@ def _tree_where(pred, a, b):
 
 def make_panoc_solver(psi_vg: Callable[[jnp.ndarray, Any], tuple],
                       C: Box, cfg: PanocConfig,
-                      psi_vg_multi: Callable = None,
                       progress_callback: Callable = None) -> Callable:
     """Build ``solve(u0, tol, args) -> PanocResult``.
 
     ``psi_vg(u, args) -> (psi, grad)`` is the value-and-gradient of the smooth
     objective (plain cost, or the augmented Lagrangian when called from ALM).
-    ``psi_vg_multi(cands (K, n), args) -> ((K,), (K, n))``, when given,
-    replaces ``vmap(psi_vg)`` for the per-iteration candidate fan — the hook
-    for the fused batched evaluator (ops/fused_psi.py).
     ``progress_callback(iteration, psi, criterion, gamma)``, when given, is
     streamed per inner iterate via ``jax.debug.callback`` — the direct
     analogue of alpaqa's progress callback (reference: controller.py:23-24),
     for interactive debugging; prefer ``cfg.trace`` in compiled sweeps.
     The returned ``solve`` is jit-able and vmap-able over ``(u0, args)``.
     """
-    cand_vg = psi_vg_multi if psi_vg_multi is not None \
-        else jax.vmap(psi_vg, in_axes=(0, None))
+    cand_vg = jax.vmap(psi_vg, in_axes=(0, None))
 
     def fbe(u_c, psi_c, grad_c, gamma):
         """Forward-backward envelope phi_gamma at a point."""
@@ -302,8 +297,8 @@ def make_panoc_solver(psi_vg: Callable[[jnp.ndarray, Any], tuple],
             # NOTE: no QUB-along-step admissibility filter here. Quasi-Newton
             # candidates legitimately violate the gradient-step quadratic
             # upper bound mid-solve (that is exactly why PANOC uses the FBE
-            # merit); filtering on it was measured to disable the L-BFGS
-            # acceleration (4090 -> 929 solves/s on the headline bench).
+            # merit); filtering on it disables the L-BFGS acceleration
+            # (far more iterations per solve on the headline bench).
             # Garbage candidates from noise-poisoned curvature pairs are
             # prevented at the source instead (lbfgs_push min_step + the
             # tr_mult direction cap above).

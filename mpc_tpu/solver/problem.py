@@ -1,6 +1,6 @@
 """Optimal-control / NLP problem containers.
 
-TPU-native replacement for alpaqa's compiled problem object
+JAX-native replacement for alpaqa's compiled problem object
 (reference: main.py:54 ``generate_and_compile_casadi_problem`` — runtime C
 codegen + cc + dlopen). Here the problem is a pair of pure JAX callables
 (cost ``f`` and constraints ``g``) plus box data; "compilation" is ``jax.jit``
@@ -21,6 +21,28 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
+
+
+# Unroll factor of the horizon scans on a GPU (capped at the scan length);
+# see default_unroll.
+GPU_UNROLL = 4
+
+
+def default_unroll(n_steps: int) -> int:
+    """The horizon-scan unroll used when a builder is given ``unroll=None``.
+
+    Unrolling trades compile time for step time. XLA:CPU keeps the scans
+    loops: unrolled graphs there only bloat compile time. On a GPU the scan
+    is unrolled by ``GPU_UNROLL``, capped at ``n_steps``. On an H100 (700 W)
+    the headline closed-loop step (N=12, batch 1024) took 0.366, 0.223,
+    0.185, 0.168 and 0.157 s at unroll 1, 2, 3, 4 and 6, and 0.098 s fully
+    unrolled; the compile grows with the unroll, to 505 s fully unrolled
+    (examples/exp_unroll.py). Unroll 4 keeps most of the gain at a compile
+    time that fits a cold start of chip_smoke.py.
+    """
+    if jax.default_backend() == "cpu":
+        return 1
+    return max(1, min(n_steps, GPU_UNROLL))
 
 
 class Box(NamedTuple):
@@ -66,15 +88,6 @@ class Problem:
     D: Box                      # general-constraint box (m,)
     n: int                      # number of decision variables
     m: int                      # number of general constraints
-    # Optional fused multi-candidate value+grad of the cost:
-    # (cands (K, n), param) -> (psi (K,), grad (K, n)). When present, the
-    # inner solver evaluates its line-search fan through this (e.g. the
-    # batched/Pallas evaluator in ops/fused_psi.py) instead of
-    # vmap(value_and_grad(cost)).
-    cost_multi: Optional[Callable] = None
-    # Fused augmented-Lagrangian variant for the general-constraint path:
-    # (cands (K, n), param, lam (m,), sigma (m,)) -> (psi (K,), grad (K, n)).
-    al_multi: Optional[Callable] = None
     # Static marker: cost consumes param["obstacles"] (K, 4) — suite drivers
     # use it to decide whether to thread ScenarioBatch.obstacles through.
     uses_obstacles: bool = False
@@ -107,18 +120,14 @@ def build_ocp_problem(f_d: Callable, stage_cost: Callable, n_horiz: int,
 
     The stage cost/constraints receive the state *after* applying each input
     (reference convention: main.py:36-40 applies ``L`` to ``mpc_sim[:, n]``).
+
+    ``unroll`` is the rollout scan's unroll factor; ``None`` takes
+    :func:`default_unroll`.
     """
     n = input_dim * n_horiz
     m = n_stage_constraints * n_horiz
-
     if unroll is None:
-        # At MPC horizons the rollout is tiny; keeping it a loop leaves XLA
-        # with ~n_horiz sequential micro-kernels per cost evaluation (per
-        # line-search candidate, per solver iteration). Fully unrolling lets
-        # XLA fuse the whole rollout+cost into one kernel — measured +44%
-        # solves/s on TPU. On CPU the unrolled graph mainly bloats compile
-        # time (tests), so auto mode unrolls only on accelerators.
-        unroll = n_horiz if jax.default_backend() != "cpu" else 1
+        unroll = default_unroll(n_horiz)
 
     def rollout_states(u_flat, param):
         us = u_flat.reshape(n_horiz, input_dim)

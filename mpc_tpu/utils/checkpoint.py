@@ -3,7 +3,7 @@
 The reference carries no persistent state beyond the in-memory warm start
 (controller.py:20-21); for the 10k-rollout suites (BASELINE.json config #5)
 we checkpoint the full closed-loop state — plant states, warm-start inputs,
-multipliers, step index, RNG key — so a pod-scale run can resume after
+multipliers, step index, RNG key — so a long run can resume after
 preemption. Pytrees are saved as flat .npz archives (orbax-free: no extra
 dependency, atomic single-file writes).
 

@@ -1,28 +1,50 @@
-"""Recorded-performance database: ``.perf_results.json`` + PERF.md.
+"""Measurement records and the device stamp every recorded number carries.
 
-Every TPU measurement that backs a perf claim in code or docs goes through
-:func:`record` so the claim has a committed artifact (VERDICT r3: "the
-builder measures things on TPU and then records the numbers nowhere").
-The reference *prints* its counters every solve (reference:
-controller.py:59-64) and records nothing; this does both.
-
-Layout: one JSON object keyed by section id (sorted into PERF.md), each
-value a flat dict whose ``config`` field is the section title and whose
-other fields become bullet lines. ``meta`` keys (device, date) are stamped
-automatically.
+:func:`record` appends a result to ``.perf_results.json`` at the repo root
+(a run-time artifact, listed in ``.gitignore``), keyed by experiment id and
+stamped with :func:`device_stamp` and the date. ``PERF.md`` is written by
+hand from such records; nothing here regenerates it. The reference *prints*
+its counters every solve (reference: controller.py:59-64) and records
+nothing.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import subprocess
 import time
-from typing import Optional
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 RESULTS_PATH = os.path.join(REPO, ".perf_results.json")
-PERF_MD = os.path.join(REPO, "PERF.md")
+
+NVIDIA_SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"]
+
+
+def gpu_name_and_power_limit() -> list:
+    """One ``"<name>, <power limit>"`` line per card, as nvidia-smi prints
+    them. Raises when nvidia-smi is missing or fails."""
+    out = subprocess.run(NVIDIA_SMI_QUERY, capture_output=True, text=True,
+                         timeout=60, check=True).stdout
+    lines = [ln.strip() for ln in out.splitlines() if ln.strip()]
+    if not lines:
+        raise RuntimeError("nvidia-smi listed no GPU")
+    return lines
+
+
+def device_stamp() -> dict:
+    """The device a measurement ran on: JAX's platform, device kind and
+    count, plus each card's name and power limit (``None`` off a GPU)."""
+    import jax
+
+    devs = jax.devices()
+    stamp = {"platform": devs[0].platform, "kind": devs[0].device_kind,
+             "count": len(devs), "nvidia_smi": None}
+    if devs[0].platform == "gpu":
+        stamp["nvidia_smi"] = gpu_name_and_power_limit()
+    return stamp
 
 
 def load() -> dict:
@@ -32,36 +54,13 @@ def load() -> dict:
     return {}
 
 
-def record(key: str, result: dict, write_md: bool = True) -> dict:
-    """Store ``result`` under ``key`` and regenerate PERF.md."""
-    import jax
-
+def record(key: str, result: dict) -> dict:
+    """Store ``result`` under ``key``, stamped with the device and date."""
     results = load()
     result = dict(result)
-    result.setdefault("device", str(jax.devices()[0]))
+    result.setdefault("device", device_stamp())
     result.setdefault("recorded", time.strftime("%Y-%m-%d"))
     results[key] = result
     with open(RESULTS_PATH, "w") as f:
         json.dump(results, f, indent=1)
-    if write_md:
-        write_perf_md(results)
     return results
-
-
-def write_perf_md(results: Optional[dict] = None) -> None:
-    if results is None:
-        results = load()
-    lines = ["# PERF — recorded measurements",
-             "",
-             "Regenerated from `.perf_results.json` (utils/perfdb.py); every",
-             "number below reproduces from the named script. One TPU chip",
-             "unless the section says otherwise.", ""]
-    for key in sorted(results):
-        r = results[key]
-        lines.append(f"## {r.get('config', key)}")
-        for k, v in r.items():
-            if k != "config":
-                lines.append(f"- {k}: {v}")
-        lines.append("")
-    with open(PERF_MD, "w") as f:
-        f.write("\n".join(lines))

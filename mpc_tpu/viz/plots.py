@@ -1,6 +1,6 @@
 """Plotting utilities (matplotlib, host-side, import-gated).
 
-TPU-native equivalents of the reference's visualization layer
+JAX-native equivalents of the reference's visualization layer
 (simulation.py:5-114, pyglet_sim.py:7-46, plotting tails of main.py:158-167
 and alpaqa_example.py:294-350). All functions take host numpy arrays; device
 arrays are converted. matplotlib is imported lazily so headless/benchmark

@@ -2,7 +2,7 @@
 //
 // Host-side data pipeline for the 10k-scenario suites (BASELINE.json config
 // #5). Generating large scenario batches in Python/JAX steals host time from
-// dispatching TPU work; this generator fills preallocated numpy buffers from
+// dispatching device work; this generator fills preallocated numpy buffers from
 // a C++ thread pool so road generation overlaps with device execution.
 //
 // Layout contract (float32, C-order), matching mpc_tpu.sim.scenarios:

@@ -1,12 +1,12 @@
-"""Parity gate: our f32 TPU solver vs an independent f64 CPU optimizer.
+"""Parity gate: our f32 solver vs an independent f64 CPU optimizer.
 
 alpaqa is not installable in this environment, so the closed-loop parity
 check (BASELINE.md: trajectory error <= 1e-3 at equal horizon) is grounded by
 an *independent* float64 transcription of the exact same OCP (RK4 rollout +
-unnormalized road errors + stage cost, all reimplemented in plain numpy in
-this file) solved with scipy L-BFGS-B. The reference's plant equals its
-prediction model (main.py:145), so equal-OCP equal-solution implies equal
-closed loop.
+unnormalized road errors + stage cost, reimplemented in plain numpy in
+``mpc_tpu/utils/f64_oracle.py``) solved with scipy L-BFGS-B. The reference's
+plant equals its prediction model (main.py:145), so equal-OCP equal-solution
+implies equal closed loop.
 """
 
 import jax.numpy as jnp
@@ -19,90 +19,21 @@ from mpc_tpu.control.mpc import build_vehicle_ocp
 from mpc_tpu.models.params import VehicleParams
 from mpc_tpu.ops.road import straight_centerline
 from mpc_tpu.solver.alm import make_alm_solver
-
-N_HORIZ = 12
-TS = 0.05
-V_REF = 1.0
-WEIGHTS = (0.5, 1.0, 1.0, 0.5, 0.1, 0.01)
-
-
-# ---- independent float64 transcription of the OCP ------------------------
-
-def np_pacejka(x, u, p: VehicleParams):
-    d, dl = u
-    phi, vx, vy, w = x[2], x[3], x[4], x[5]
-    af = -np.arctan2(w * p.axis_front + vy, vx) + dl
-    ar = np.arctan2(w * p.axis_rear - vy, vx)
-    frx = (p.cm1 - p.cm2 * vx) * d - p.cr0 * np.sign(vx) - p.cr2 * vx * vx
-    ffy = p.df * np.sin(p.cf * np.arctan(p.bf * af))
-    fry = p.dr * np.sin(p.cr * np.arctan(p.br * ar))
-    return np.array([
-        vx * np.cos(phi) - vy * np.sin(phi),
-        vx * np.sin(phi) + vy * np.cos(phi),
-        w,
-        (frx - ffy * np.sin(dl) + p.mass * vy * w) / p.mass,
-        (fry + ffy * np.cos(dl) - p.mass * vx * w) / p.mass,
-        (ffy * p.axis_front * np.cos(dl) - fry * p.axis_rear) / p.inertia,
-    ])
-
-
-def np_f_d(x, u, p):
-    h = TS / 4
-    for _ in range(4):
-        k1 = np_pacejka(x, u, p)
-        k2 = np_pacejka(x + 0.5 * h * k1, u, p)
-        k3 = np_pacejka(x + 0.5 * h * k2, u, p)
-        k4 = np_pacejka(x + h * k3, u, p)
-        x = x + (h / 6) * (k1 + 2 * k2 + 2 * k3 + k4)
-    return x
-
-
-def np_errors(pos, heading, cl):
-    d2 = np.sum((cl[:-1] - pos) ** 2, axis=1)
-    idx = int(np.argmin(d2))
-    near, prev, nxt = cl[idx], cl[max(idx - 1, 0)], cl[idx + 1]
-    v = pos - prev
-    w = near - prev
-    cte = v[0] * w[1] - v[1] * w[0]
-    desired = np.arctan2(nxt[1] - near[1], nxt[0] - near[0])
-    hdg = np.mod(desired - heading + np.pi, 2 * np.pi) - np.pi
-    vn = pos - near
-    wn = nxt - near
-    pe = vn[0] * wn[1] - vn[1] * wn[0]
-    return cte, hdg, pe
-
-
-def np_cost(u_flat, y0, cl, p):
-    us = u_flat.reshape(N_HORIZ, 2)
-    x = y0.copy()
-    total = 0.0
-    c = WEIGHTS
-    for k in range(N_HORIZ):
-        x = np_f_d(x, us[k], p)
-        cte, hdg, pe = np_errors(x[:2], x[2], cl)
-        speed = np.sqrt(x[3] ** 2 + x[4] ** 2)
-        total += (c[0] * (speed - V_REF) ** 2 + c[1] * cte ** 2
-                  + c[2] * pe ** 2 + c[3] * hdg ** 2
-                  + c[4] * us[k, 1] ** 2 + c[5] * us[k, 0] ** 2)
-    return total
+from mpc_tpu.utils.f64_oracle import (COST_TOL, N_HORIZ,
+                                      PARITY_INITIAL_STATES, TS, U0_ATOL,
+                                      V_REF, WEIGHTS, lbfgsb_reference,
+                                      np_cost, np_f_d,
+                                      straight_centerline_f64)
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("y0", [
-    np.array([0.0, 0.0, 0.0, 0.5, 0.0, 0.0]),
-    np.array([0.0, 0.15, 0.0, 0.5, 0.0, 0.0]),
-    np.array([0.3, -0.05, 0.1, 0.8, 0.0, 0.0]),
-])
+@pytest.mark.parametrize("y0", [np.array(y) for y in PARITY_INITIAL_STATES])
 def test_ocp_solution_matches_f64_reference(y0):
     p = VehicleParams()
-    cl64 = np.stack([np.arange(100) / 10 - 0.1, np.zeros(100)], axis=1)
+    cl64 = straight_centerline_f64()
 
     # independent f64 solve (scipy L-BFGS-B, numerical gradients)
-    bounds = [(-1.0, 1.0), (-0.32, 0.32)] * N_HORIZ
-    u_init = np.tile([1.0, 0.0], N_HORIZ)
-    ref = minimize(np_cost, u_init, args=(y0, cl64, p), method="L-BFGS-B",
-                   bounds=bounds, options={"maxiter": 500, "ftol": 1e-14,
-                                           "gtol": 1e-9})
+    ref_x = lbfgsb_reference(y0, p, cl64)
 
     # our solver
     prob = build_vehicle_ocp(n_horiz=N_HORIZ, v_ref=V_REF, ts=TS,
@@ -111,16 +42,16 @@ def test_ocp_solution_matches_f64_reference(y0):
                             PanocConfig(lbfgs_memory=12, max_iter=400))
     param = {"y0": jnp.asarray(y0, jnp.float32), "p": p,
              "centerline": straight_centerline(100)}
-    res = solve(param, jnp.asarray(u_init, jnp.float32),
+    res = solve(param, jnp.tile(jnp.asarray([1.0, 0.0], jnp.float32), N_HORIZ),
                 jnp.zeros(prob.m, jnp.float32))
 
     ours = np.asarray(res.u, np.float64)
     # cost parity in the f64 ground-truth objective
-    cost_ref = np_cost(ref.x, y0, cl64, p)
+    cost_ref = np_cost(ref_x, y0, cl64, p)
     cost_ours = np_cost(ours, y0, cl64, p)
-    assert cost_ours <= cost_ref + 1e-5, (cost_ours, cost_ref)
+    assert cost_ours <= cost_ref + COST_TOL, (cost_ours, cost_ref)
     # first-input parity (what actually drives the plant)
-    np.testing.assert_allclose(ours[:2], ref.x[:2], atol=5e-3)
+    np.testing.assert_allclose(ours[:2], ref_x[:2], atol=U0_ATOL)
 
 
 # ---- constrained parity gates (the full ALM multiplier path) --------------
@@ -132,21 +63,6 @@ def test_ocp_solution_matches_f64_reference(y0):
 # Oracle: f64 scipy SLSQP on an independent transcription.
 
 NC = 6   # short horizon keeps the scipy oracle tractable
-
-
-def np_cost_nc(u_flat, y0, cl, p, v_ref):
-    us = u_flat.reshape(NC, 2)
-    x = y0.copy()
-    total = 0.0
-    c = WEIGHTS
-    for k in range(NC):
-        x = np_f_d(x, us[k], p)
-        cte, hdg, pe = np_errors(x[:2], x[2], cl)
-        speed = np.sqrt(x[3] ** 2 + x[4] ** 2)
-        total += (c[0] * (speed - v_ref) ** 2 + c[1] * cte ** 2
-                  + c[2] * pe ** 2 + c[3] * hdg ** 2
-                  + c[4] * us[k, 1] ** 2 + c[5] * us[k, 0] ** 2)
-    return total
 
 
 def np_state_constraints(u_flat, y0, p):
@@ -172,11 +88,11 @@ def test_constrained_vehicle_ocp_matches_f64_slsqp():
     # start just under the speed bound sqrt(2): v_ref=2 pushes the optimum
     # into the vx^2 <= 2 constraint within the short horizon
     y0 = np.array([0.0, 0.0, 0.0, 1.41, 0.0, 0.0])
-    cl64 = np.stack([np.arange(100) / 10 - 0.1, np.zeros(100)], axis=1)
+    cl64 = straight_centerline_f64()
     u_init = np.tile([1.0, 0.0], NC)
 
     ref = minimize(
-        np_cost_nc, u_init, args=(y0, cl64, p, v_ref), method="SLSQP",
+        np_cost, u_init, args=(y0, cl64, p, NC, v_ref), method="SLSQP",
         bounds=[(-1.0, 1.0), (-0.32, 0.32)] * NC,
         constraints=[{"type": "ineq",
                       "fun": lambda u: -np_state_constraints(u, y0, p)}],
@@ -198,8 +114,8 @@ def test_constrained_vehicle_ocp_matches_f64_slsqp():
     ours = np.asarray(res.u, np.float64)
     # feasible (to ALM delta) and as good as the oracle in the f64 objective
     assert np_state_constraints(ours, y0, p).max() <= 2e-3
-    cost_ref = np_cost_nc(ref.x, y0, cl64, p, v_ref)
-    cost_ours = np_cost_nc(ours, y0, cl64, p, v_ref)
+    cost_ref = np_cost(ref.x, y0, cl64, p, NC, v_ref)
+    cost_ours = np_cost(ours, y0, cl64, p, NC, v_ref)
     assert cost_ours <= cost_ref + 1e-3, (cost_ours, cost_ref)
     np.testing.assert_allclose(ours[:2], ref.x[:2], atol=2e-2)
 
